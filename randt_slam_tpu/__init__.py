@@ -1,7 +1,7 @@
-"""TPU-native radar NDT SLAM engine (JAX / XLA / Pallas / pjit).
+"""Radar NDT SLAM engine in JAX / XLA.
 
 A from-scratch re-architecture of the capabilities of RaNDT SLAM
-(IGMR-RWTH/RaNDT-SLAM, IROS 2024) for TPU hardware: fixed-shape batched
+(IGMR-RWTH/RaNDT-SLAM, IROS 2024) for accelerators: fixed-shape batched
 tensors, vmapped per-cell/per-residual math, a batched Gauss-Newton /
 Levenberg-Marquardt smoother with Barron-loss graduated non-convexity,
 vectorized ScanContext loop closure, and batched pose-graph optimization.
@@ -9,9 +9,10 @@ vectorized ScanContext loop closure, and batched pose-graph optimization.
 
 import os as _os
 
-# Persistent XLA compilation cache: pipeline-step compiles run minutes on the
-# TPU backend; caching them to disk makes every re-run (tests, bench, CLI)
-# start in seconds.  Opt out with RANDT_NO_COMPILE_CACHE=1.
+# Persistent XLA compilation cache, in ``JAX_COMPILATION_CACHE_DIR`` when it
+# is set and in the checkout's ``.jax_cache/`` otherwise: pipeline-step
+# compiles take tens of seconds, and caching them to disk lets a re-run
+# (tests, bench, CLI) skip them.  Opt out with RANDT_NO_COMPILE_CACHE=1.
 if not _os.environ.get("RANDT_NO_COMPILE_CACHE"):
     _cache_dir = _os.environ.setdefault(
         "JAX_COMPILATION_CACHE_DIR",
@@ -24,14 +25,14 @@ if not _os.environ.get("RANDT_NO_COMPILE_CACHE"):
     _jax.config.update("jax_compilation_cache_dir", _cache_dir)
     _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
-# Float32 matmul precision by default.  TPU f32 matmuls lower to bf16 MXU
-# passes unless told otherwise, and this workload's accuracy-critical
-# contractions are small-matrix state-estimation math (SE(2) transforms of
-# cell distributions, 3x3 covariance whitening, window Jacobians) where bf16
-# rounding of ~0.4% is catastrophic: the synthetic e2e run diverges from
-# 0.09 m ATE (f32) to 12.5 m (bf16) once cell intensity variance is realistic.
-# The FLOP-heavy tolerant kernels opt in to faster passes explicitly (the
-# Pallas segment-moments kernel pins its own precision).  Opt out with
+# Full float32 matmul precision by default.  On the GPU, XLA's default lets
+# float32 matmuls run in TF32 on the tensor cores (about three decimal
+# digits); `highest` keeps them in true float32.  This workload's
+# accuracy-critical contractions are small-matrix state-estimation math
+# (SE(2) transforms of cell distributions, 3x3 covariance whitening, window
+# Jacobians) where reduced-precision rounding is catastrophic: the synthetic
+# e2e run diverged from 0.09 m ATE (float32) to 12.5 m (bf16 inputs) once
+# cell intensity variance is realistic.  Opt out with
 # RANDT_MATMUL_PRECISION=default|high|highest.
 import jax as _jax2
 

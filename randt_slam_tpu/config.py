@@ -1,4 +1,4 @@
-"""Typed configuration for the TPU-native radar NDT SLAM engine.
+"""Typed configuration for the radar NDT SLAM engine.
 
 Mirrors the reference parameter tree (RaNDT SLAM,
 ``RS/include/ndt_slam/ndt_slam_parameters.h`` and the imperative loader in
@@ -11,7 +11,7 @@ derived parameters the reference computes at load time:
 * ``insertion_delay = smoothing_steps + 1`` (``:580``).
 * loop-closure defaults cascade from matcher params (``:573-586,614-616``).
 
-Additional TPU-only capacity parameters (padded tensor sizes) live in
+Additional capacity parameters (padded tensor sizes) live in
 :class:`CapacityConfig`; they have no reference counterpart because the
 reference uses dynamically sized C++ containers.
 """
@@ -76,7 +76,7 @@ class MapConfig:
         The reference ring search (``ndt_map.cpp:101-151``) grows the window
         until >= k occupied cells are found, breaking once the radius counter
         reaches ``int(max_linf/resolution)``; the last radius actually
-        *evaluated* is therefore ``int(max_linf/resolution) - 1``.  The TPU
+        *evaluated* is therefore ``int(max_linf/resolution) - 1``.  This
         build gathers one fixed window of that radius and takes a masked
         top-k over it (see ``ndt/grid.py``).
         """
@@ -155,7 +155,7 @@ class MatcherConfig:
     csm_cost_threshold: float = 0.82
     csm_max_px_accurate_range: float = 4.0
     csm_n_iter: int = 2
-    # TPU-only: iteration cap of the inner Levenberg-Marquardt loop per GNC
+    # No reference counterpart: iteration cap of the inner Levenberg-Marquardt loop per GNC
     # step.  The reference lets Ceres run up to ``max_iteration``; the batched
     # solver converges in far fewer damped steps on these tiny problems.
     lm_max_iterations: int = 25
@@ -165,23 +165,6 @@ class MatcherConfig:
     # accepted LM step improving the cost by less than this relative amount
     # terminates the inner loop.
     lm_function_tolerance: float = 1e-6
-    # TPU-native (no reference counterpart): route the window estimator's
-    # LM loop through the Pallas-fused linearize/cost kernels
-    # (``ops/ndt_linearize.py``).  MEASURED round 5 (scripts/
-    # ab_pallas_linearize.py, 40-frame lax.scan on the v5e): numerically
-    # exact vs the jacfwd path (same ATE, pose delta < 5e-4 m) but ~3%
-    # SLOWER (2.13 vs 2.06 ms/frame) — at W=3 x 2048-pair shapes the Mosaic
-    # launch overhead inside the LM while_loop eats the fusion win, and the
-    # round-4 ftol/ptol fixes already cut the iteration count the fusion
-    # would have amortized.  Kept for larger windows/capacities where the
-    # arithmetic grows but launches don't; OFF by default.
-    use_pallas_linearize: bool = False
-    # Independently: solve the damped 36x36 normal equations with the
-    # single-kernel in-VMEM Cholesky (``ops/small_chol.py``) instead of
-    # XLA's LU pipeline.  MEASURED round 5: exact but ~8% slower per frame —
-    # the kernel's 3P sequential cross-lane reductions underperform the LU
-    # custom call at P=36.  OFF by default.
-    use_pallas_chol: bool = False
 
 
 @dataclass(frozen=True)
@@ -194,7 +177,7 @@ class ScanContextConfig:
     # 50 (reference default is 100, ``Scancontext.h``): the round-4 recall
     # sensitivity sweep (``acceptance/loop_sweep.json``, OXFORD_RESULTS §6)
     # measured 100 -> 50 as +4% recall at ZERO additional bad edges on the
-    # revisit window — adopted (VERDICT r4 item 8).  Reference YAMLs that set
+    # revisit window — adopted.  Reference YAMLs that set
     # the key explicitly still override this via ``from_reference_yaml``.
     num_exclude_recent: int = 50
     num_candidates: int = 10
@@ -226,12 +209,12 @@ class LocalFuserConfig:
     use_intensity_in_loop_closure: bool = True
     use_scan_context_as_loop_closure: bool = True
     compute_dfs_loop_closure: bool = False
-    # TPU extension (no reference counterpart): run the batched CSM global
+    # Extension (no reference counterpart): run the batched CSM global
     # search (``global_grid_search``) to pre-align ScanContext candidates
     # before GNC refinement.  Widens the loop-closure convergence basin from
     # ~1-2 m to the CSM window at the cost of one batched scoring pass.
     csm_prealign_loops: bool = False
-    # TPU extension (no reference counterpart): odometry-consistency gate on
+    # Extension (no reference counterpart): odometry-consistency gate on
     # refined loop edges.  A refined loop pose whose discrepancy against the
     # odometry-chained relative pose exceeds what odometry drift over the
     # traversed span can explain is a wrong-basin NDT refinement (aliased
@@ -266,7 +249,7 @@ class GlobalFuserConfig:
     loss_function_scale: float = 750.0
     max_iterations: int = 100  # GN iterations of the batched solver
     tolerance: float = 1e-9
-    # --- TPU-native extensions (no reference counterpart; the defaults
+    # --- Extensions (no reference counterpart; the defaults
     # reproduce ``global_fuser.cpp:17-23`` exactly: Huber on ALL edges).
     # "dcs" = Dynamic Covariance Scaling (Agarwal et al., ICRA 2013), a
     # redescending kernel that suppresses gross loop-closure outliers far
@@ -285,7 +268,7 @@ class GlobalFuserConfig:
     # residual of an inconsistent loop edge concentrates on itself, so IRLS
     # identifies outliers without suppressing genuine drift-corrupted loops.
     robust_two_stage: bool = False
-    # --- SHIPPED TPU-native defense (VERDICT r4 item 2) -------------------
+    # --- SHIPPED defense against bad loop edges ----------------------------
     # Dynamic Covariance Scaling on LOOP edges only, applied two-stage
     # (quadratic solve first, then DCS-weighted re-solve).  Independent of
     # the reference-parity ``use_robust_loss`` knob so it survives loading
@@ -306,7 +289,7 @@ class GlobalFuserConfig:
 
 @dataclass(frozen=True)
 class CapacityConfig:
-    """TPU-only fixed tensor capacities (padded shapes).
+    """Fixed tensor capacities (padded shapes).
 
     No reference counterpart; the reference grows ``std::vector``s.  These cap
     the padded array sizes the jitted pipeline is compiled for.

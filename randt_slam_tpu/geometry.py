@@ -2,7 +2,7 @@
 
 The reference uses Sophus::SE2d plus a scalar (x, y, theta) representation
 side by side (``RS/include/ndt_slam/trajectory_representation.h:12-22``).
-The TPU build uses a single ``(..., 3)`` array ``[x, y, theta]`` everywhere;
+This build uses a single ``(..., 3)`` array ``[x, y, theta]`` everywhere;
 batched ops broadcast over leading axes.
 """
 

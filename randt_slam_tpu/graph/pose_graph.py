@@ -2,9 +2,9 @@
 
 Replaces ``GlobalFuser::optimizePoseGraph`` (``RS/src/global_fuser/
 global_fuser.cpp:13-105``), which hands a dynamically-built problem to Ceres'
-sparse Cholesky.  The TPU build assembles the normal equations from all edges
+sparse Cholesky.  This build assembles the normal equations from all edges
 at once — per-edge 3x3 Jacobian blocks are closed-form — scatter-adds them
-into a dense (3N, 3N) system, and solves with a damped Cholesky on the MXU.
+into a dense (3N, 3N) system, and solves it with a damped Cholesky.
 Radar pose graphs are small (O(10^3) nodes, so 3N <= ~2*10^4: a dense solve is
 a few ms on one chip); a Schur-complement/distributed path for larger graphs
 lives in ``graph/schur.py``.
@@ -88,11 +88,8 @@ def spd_solve(H, b):
     """Solve the damped gauge-fixed normal equations via Cholesky.
 
     The system is SPD by construction (Gauss-Newton H + positive LM damping,
-    identity rows on gauge-fixed DOFs).  Cholesky is both the right
-    factorization and the only one that fits TPU scoped VMEM at full-sequence
-    Oxford sizes: XLA's ``LuDecompositionBlock`` (``jnp.linalg.solve``)
-    overflows the 16 MB scoped-vmem limit beyond ~10k unknowns, while the
-    blocked Cholesky does not.
+    identity rows on gauge-fixed DOFs), so Cholesky is the right
+    factorization.
     """
     c = jax.scipy.linalg.cho_factor(H, lower=True)
     return jax.scipy.linalg.cho_solve(c, b)
@@ -119,7 +116,7 @@ def robust_spec(cfg: GlobalFuserConfig):
     ``(kernel, loop_edges_only)``.  Used both to compute IRLS weights and as
     part of the Schur kernel-cache key.
 
-    The shipped TPU-native DCS loop defense (``cfg.dcs_loop_defense``) is
+    The shipped DCS loop defense (``cfg.dcs_loop_defense``) is
     NOT reflected here: applying a redescending kernel from a drifted init
     suppresses genuine loop edges (their residuals are large until PGO
     corrects the drift), so the defense only activates in stage 2 of
@@ -262,16 +259,15 @@ def optimize_bucketed(g: PoseGraph, cfg: GlobalFuserConfig,
     per tick because every tick has a new (N, E) shape.  Padding nodes and
     edges up to bucket multiples gives successive ticks the same compiled
     executable — the dense-path analogue of the Schur kernel bucketing
-    (VERDICT r4 item 3).  Padded nodes are gauge-fixed and padded edges
+.  Padded nodes are gauge-fixed and padded edges
     invalid, so the solution is bit-identical to the unpadded solve.
     """
     import numpy as np
 
     # Padding and edge filtering happen HOST-SIDE in numpy: with jnp inputs
-    # every tick's new (N, E) shape lowered ~10 fresh eager concatenate /
-    # compare kernels — each a remote-compile round-trip per ONLINE PGO TICK
-    # (measured: 7.1 s median tick, ~all of it these compiles; the same tax
-    # as SPEED.md finding 0).  The jitted solve uploads the padded graph.
+    # every tick's new (N, E) shape would lower ~10 fresh eager concatenate /
+    # compare kernels — a compile each per ONLINE PGO TICK.  The jitted solve
+    # uploads the padded graph.
     g = jax.tree.map(np.asarray, g)
     N = g.poses.shape[0]
     E = g.id_begin.shape[0]
@@ -315,7 +311,7 @@ def recover_covariances(g: PoseGraph, poses, cfg: GlobalFuserConfig,
 
     Returns (N, 3, 3) diagonal blocks of H^-1 at the solution; gauge-fixed
     nodes get zeros (they are exact by definition).  Dense inverse: radar
-    pose graphs are O(10^3) nodes, so (3N)^2 stays MXU-friendly.
+    pose graphs are O(10^3) nodes, so (3N)^2 stays small.
     """
     N = poses.shape[0]
     dtype = poses.dtype

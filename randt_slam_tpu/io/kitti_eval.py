@@ -5,7 +5,7 @@ The reference's ``result.txt`` files are produced by the external
 ``radar_kitti_benchmark`` / ``kitti-odom-eval`` tool
 (``eval_odom.py --align 6dof``, ``/root/reference/oxford-dataset.md:71-103``).
 This module reimplements the headline metrics with the same protocol so runs
-of the TPU engine can be scored against ``BASELINE.md`` without ROS:
+of this engine can be scored against ``BASELINE.md`` without ROS:
 
   * translational drift [%] and rotational drift [deg/100m] over segment
     lengths 100..800 m, segment starts every 10 frames,

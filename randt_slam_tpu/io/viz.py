@@ -88,7 +88,7 @@ def render_map_png(path, node_pose=None, odom=None,
                    ndt_mean=None, ndt_cov=None, ndt_valid=None,
                    ogm=None, ogm_extent=None, n_sigma=3.0, dpi=150,
                    title=None):
-    """Offline renderer of the RViz view (VERDICT r3 missing-3): global OGM
+    """Offline renderer of the RViz view: global OGM
     as the backdrop, NDT covariance ellipses colored rainbow by mean
     intensity (``rviz_visualization.cpp:21-80,145-171``), odometry trace and
     optimized trajectory on top.  All inputs are optional; world frame.

@@ -6,7 +6,7 @@ modifications: bins ACCUMULATE intensity * intensity_factor instead of taking
 max height (``makeScancontext``, :156-203), and candidate scoring adds an
 odometry-consistency penalty (``distanceBtnScanContext``, :146-151).
 
-TPU mapping:
+Batched mapping:
   * descriptor build      -> 2-D histogram scatter-add over (ring, sector)
   * ring-key kNN          -> one (Q, N) distance matmul + causal mask + top-k
     (replaces the incrementally rebuilt nanoflann kd-tree, :275-301)
@@ -90,7 +90,7 @@ def _all_shift_cosine_dist(d1, d2):
     R, S = d1.shape
     cols = jnp.arange(S)
     idx = (cols[None, :] - cols[:, None]) % S  # (S, S): [s, j] -> source col
-    # All column-pair dot products as ONE (S, S) matmul on the MXU, then a
+    # All column-pair dot products as ONE (S, S) matmul, then a
     # tiny gather per shift — materializing the rolled descriptor per shift
     # ((R, S, S) per candidate) OOMed at Oxford-length loop batches.
     M = jnp.einsum("rj,rk->jk", d1, d2)        # M[j, k] = d1[:, j] . d2[:, k]

@@ -3,7 +3,7 @@
 Replaces ``MasterMap::getOGM`` (``RS/src/ndt_representation/
 ndt_master_map.cpp:20-106``): the reference loops over submaps with 4 OpenMP
 threads, resampling each submap counting grid into the global grid through an
-std::map of increments.  The TPU build does the same math as batched
+std::map of increments.  This build does the same math as batched
 gather/scatter:
 
   * 4-sample anti-aliased resampling per submap cell (:22-36,60-63)

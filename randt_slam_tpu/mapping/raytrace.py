@@ -3,7 +3,7 @@
 Replaces ``HierarchicalMap::raytraceLine`` / ``bresenham2D``
 (``RS/src/ndt_representation/ndt_hierarchical_map.cpp:87-149``), which walk
 one ray at a time from a host-side queue guarded by busy-wait flags
-(``local_fuser.cpp:302-316``).  The TPU build traces ALL beams of ALL
+(``local_fuser.cpp:302-316``).  This build traces ALL beams of ALL
 keyframes as one fixed-shape scatter, evaluating the integer Bresenham
 recurrence in closed form per step so the traversed cell set matches the
 reference EXACTLY (free space -1 per traversed cell, +2 at the hit cell,

@@ -1,7 +1,7 @@
-// Host-side native runtime components for the TPU radar SLAM engine.
+// Host-side native runtime components for the radar SLAM engine.
 //
 // The reference implements its entire runtime in C++ (ROS nodes, PCL point
-// cloud handling, Bresenham raytracing).  The TPU engine keeps the compute
+// cloud handling, Bresenham raytracing).  This engine keeps the compute
 // path in XLA; these are the host-side pieces where native code still pays:
 //
 //  * pack_polar_image  — converts unorganized (x, y, intensity) radar point

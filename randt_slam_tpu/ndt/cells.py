@@ -2,7 +2,7 @@
 
 The reference stores per-cell mean/covariance and updates them with a
 recursive pooled-covariance formula (``RS/src/ndt_representation/ndt_cell.cpp:36-114``,
-merge operator ``RS/include/ndt_representation/ndt_cell.h:133-142``).  The TPU
+merge operator ``RS/include/ndt_representation/ndt_cell.h:133-142``).  This
 build instead keeps every cell in *sufficient-statistic* form
 
     n   = number of points
@@ -76,8 +76,8 @@ def from_points(points, mask, segment_ids, num_segments,
     sample_cov + mean(J Sigma J^T), and rigid transforms / merges of the
     sufficient statistics remain closed-form.
     """
-    # All 13 moment channels in one segment reduction (Pallas MXU kernel on
-    # TPU; see ``ops/segment_moments.py``): [w | w·p | (w·ppᵀ + noise)].
+    # All 13 moment channels in one segment reduction
+    # (``ops/segment_moments.py``): [w | w·p | (w·ppᵀ + noise)].
     from ..ops import segment_moments
 
     chans = _moment_channels(points, mask, polar, beam_cov)
@@ -86,15 +86,14 @@ def from_points(points, mask, segment_ids, num_segments,
 
 
 def from_points_compact(points, mask, segment_ids, num_segments, k,
-                        polar=None, beam_cov=None, row_size=None):
-    """Fused :func:`from_points` + :func:`compact`: accumulate moments only
-    for the ``k`` most-populated segments (the scan cell budget).  Returns
+                        polar=None, beam_cov=None):
+    """Fused :func:`from_points` + :func:`compact`: keep the moments of the
+    ``k`` most-populated segments (the scan cell budget).  Returns
     (CellStats (k,), segment ids (k,)).  See ``ops/segment_moments.py``."""
     from ..ops.segment_moments import segment_topk_moments
 
     chans = _moment_channels(points, mask, polar, beam_cov)
-    out, topi = segment_topk_moments(chans, segment_ids, num_segments, k,
-                                     row_size=row_size)
+    out, topi = segment_topk_moments(chans, segment_ids, num_segments, k)
     return (
         CellStats(n=out[:, 0], s=out[:, 1:4], ss=out[:, 4:13].reshape(-1, 3, 3)),
         topi,

@@ -2,7 +2,7 @@
 
 The reference ``Map`` (``RS/src/ndt_representation/ndt_map.cpp``) keeps a dense
 int index grid pointing into a sparse cell vector and does ring-search nearest
-neighbors per query cell (``ndt_map.cpp:101-151``).  The TPU build keeps the
+neighbors per query cell (``ndt_map.cpp:101-151``).  This build keeps the
 grid itself dense — one :class:`~randt_slam_tpu.ndt.cells.CellStats` batch of
 shape (H, W) — so that
 
@@ -115,7 +115,7 @@ class SparseGrid(NamedTuple):
     This mirrors the reference ``Map``'s actual storage — a dense
     ``grid_indizes_`` int grid pointing into a sparse ``grid_`` cell vector
     (``RS/include/ndt_representation/ndt_map.h:155-162``) — rather than the
-    fully dense stats grid of the first TPU design.  Only ~2-4k of the 160k
+    fully dense stats grid of this engine's first design.  Only ~2-4k of the 160k
     Oxford grid slots are ever occupied, so keeping sufficient statistics
     densely wasted HBM bandwidth on every carry copy, full-grid derive and
     window gather.  Here:
@@ -306,7 +306,7 @@ def window_neighbors_sparse(
 ) -> NeighborSet:
     """Masked top-k neighbor lookup over a static (2r+1)^2 window, sparse
     storage: gather 1 int32 per window cell from the dense index grid, then
-    gather fields from the small VMEM-resident table — ~12x less HBM traffic
+    gather fields from the small cell table — ~12x less memory traffic
     than gathering (mean, cov) rows from a dense field grid.
 
     Semantics identical to :func:`window_neighbors` / the reference ring
@@ -328,7 +328,7 @@ def window_neighbors_sparse(
     have = ok & (slots >= 0) & q_valid[:, None]
     sl = jnp.where(have, slots, 0)
     # One fused (S, 16) row gather instead of separate mean/cov/valid
-    # gathers (TPU gathers are row-serial; fewer, wider rows win).
+    # gathers: fewer, wider rows.
     packed = jnp.concatenate(
         [t_mean, t_cov.reshape(-1, 9),
          t_valid.astype(t_mean.dtype)[:, None],
@@ -353,8 +353,8 @@ def _select_topk(dist, gm, gc, k: int):
     """Pick the k nearest window cells per query.
 
     For small k (the reference uses n_results_nn_lookup = 2) an iterative
-    masked argmin is far cheaper on TPU than ``lax.top_k``, which lowers to a
-    full sort of the window axis.
+    masked argmin avoids ``lax.top_k``, which can lower to a full sort of the
+    window axis.
     """
     take = jnp.take_along_axis
     if k <= 4:

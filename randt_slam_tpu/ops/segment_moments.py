@@ -1,225 +1,41 @@
-"""Segment-sum of per-point channel vectors as a tiled one-hot matmul.
+"""Segment sums of per-point channel vectors.
 
 The scan-NDT build accumulates per-cluster sufficient statistics
-(n, Σp, Σppᵀ) over ~26k points into ~3k cluster slots (reference:
+(n, Σp, Σppᵀ) over the filtered points into cluster slots (reference:
 ``Cell::updateCell`` point loops, ``RS/src/ndt_representation/
-ndt_cell.cpp:43-65``, driven per cluster from ``Map::insertCluster``).
-``jax.ops.segment_sum`` lowers to scatter-add, which serializes on TPU and
-was ~18% of front-end device time.  This kernel reformulates the reduction
-for the MXU:
+ndt_cell.cpp:43-65``, driven per cluster from ``Map::insertCluster``):
 
     out[s, c] = Σ_p [ids[p] == s] · values[p, c]
 
-tiled over (segment tiles × point tiles); the one-hot tile is built on the
-fly in VMEM (never materialized in HBM) and contracted with the point-tile
-values on the MXU, accumulating output tiles across the point-tile grid
-axis.
+Both reductions are ``jax.ops.segment_sum`` (a scatter-add) left to XLA.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-def _kernel(ids_ref, val_ref, out_ref, *, seg_tile: int):
-    j = pl.program_id(1)
-    ids = ids_ref[:]  # (PT, 1) int32
-    seg_base = pl.program_id(0) * seg_tile
-    seg_ids = jax.lax.broadcasted_iota(jnp.int32, (ids.shape[0], seg_tile), 1)
-    onehot = (ids == seg_ids + seg_base).astype(jnp.float32)  # (PT, ST)
-    acc = jax.lax.dot_general(
-        onehot, val_ref[:],
-        dimension_numbers=(((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,  # f32 moments: no bf16 pass
-    )  # (ST, CH)
-
-    @pl.when(j == 0)
-    def _():
-        out_ref[:] = acc
-
-    @pl.when(j > 0)
-    def _():
-        out_ref[:] = out_ref[:] + acc
-
-
-def _topi_kernel(ids_ref, topi_ref, val_ref, out_ref):
-    """Moments for an explicit segment list: out[s] = Σ_p [ids[p] == topi[s]]
-    · values[p].  Avoids the id→rank remap gather of a two-pass reduction —
-    the one-hot compares raw point ids against the gathered segment list."""
-    j = pl.program_id(1)
-    ids = ids_ref[:]            # (PT, 1) int32
-    topi = topi_ref[0:1, :]     # (1, ST) int32
-    onehot = (ids == topi).astype(jnp.float32)  # (PT, ST)
-    acc = jax.lax.dot_general(
-        onehot, val_ref[:],
-        dimension_numbers=(((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )
-
-    @pl.when(j == 0)
-    def _():
-        out_ref[:] = acc
-
-    @pl.when(j > 0)
-    def _():
-        out_ref[:] = out_ref[:] + acc
-
-
-@functools.partial(jax.jit, static_argnames=("num_segments", "point_tile",
-                                             "seg_tile"))
-def _segment_moments_pallas(values, ids, num_segments: int,
-                            point_tile: int = 1024, seg_tile: int = 512):
-    P, CH = values.shape
-    CHp = _round_up(CH, 128)
-    Pp = _round_up(P, point_tile)
-    Sp = _round_up(num_segments, seg_tile)
-
-    vals = jnp.zeros((Pp, CHp), values.dtype).at[:P, :CH].set(values)
-    # Padded points get id == Sp (matches no segment tile).
-    ids_p = jnp.full((Pp, 1), Sp, jnp.int32).at[:P, 0].set(ids.astype(jnp.int32))
-
-    grid = (Sp // seg_tile, Pp // point_tile)
-    out = pl.pallas_call(
-        functools.partial(_kernel, seg_tile=seg_tile),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((point_tile, 1), lambda i, j: (j, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((point_tile, CHp), lambda i, j: (j, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((seg_tile, CHp), lambda i, j: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((Sp, CHp), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * Pp * Sp * CHp, bytes_accessed=Pp * CHp * 4 + Sp * CHp * 4,
-            transcendentals=0,
-        ),
-    )(ids_p, vals)
-    return out[:num_segments, :CH]
 
 
 def segment_moments(values, ids, num_segments: int):
     """Masked segment sum: out[s] = Σ_p [ids[p] == s] values[p].
 
     values: (P, CH) float32; ids: (P,) int32, entries outside [0, num_segments)
-    are dropped.  Uses the Pallas MXU kernel on TPU for problem sizes where
-    scatter-add hurts; falls back to ``jax.ops.segment_sum`` elsewhere (CPU
-    test meshes, tiny problems).
+    are dropped (summed into a spill row that is cut off).
     """
-    P, CH = values.shape
-    on_tpu = jax.default_backend() == "tpu"
-    if on_tpu and P >= 2048 and 256 <= num_segments <= 2048:
-        return _segment_moments_pallas(values, ids, num_segments)
-    safe = jnp.where((ids >= 0) & (ids < num_segments), ids, num_segments)
-    return jax.ops.segment_sum(values, safe, num_segments=num_segments + 1)[
-        :num_segments
-    ]
+    with jax.named_scope("segment_moments"):
+        safe = jnp.where((ids >= 0) & (ids < num_segments), ids, num_segments)
+        return jax.ops.segment_sum(
+            values, safe, num_segments=num_segments + 1)[:num_segments]
 
 
-def _counts_factored(weights, ids, row_size: int):
-    """Per-segment weight sums via two narrow one-hot matmuls on the MXU.
-
-    Segment ids come from a 2-D grid hash id = iy * row_size + ix, so the
-    (num_segments,)-wide histogram factorizes: counts[y, x] =
-    Σ_p onehot_y[p, y] · w_p · onehot_x[p, x] = (Ay ∘ w)ᵀ Ax with two (P,
-    row_size) one-hots — replacing a scatter-add that serializes on TPU.
-    """
-    iy = ids // row_size
-    ix = ids - iy * row_size
-    ry = jax.lax.broadcasted_iota(jnp.int32, (1, row_size), 1)
-    oy = (iy[:, None] == ry).astype(jnp.float32)  # invalid ids match no bin
-    ox = (ix[:, None] == ry).astype(jnp.float32)
-    cnt = jax.lax.dot_general(
-        oy * weights[:, None], ox,
-        dimension_numbers=(((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )  # (row_size, row_size) = counts[y, x]
-    return cnt.reshape(-1)
-
-
-@functools.partial(jax.jit, static_argnames=("k", "point_tile", "seg_tile"))
-def _topi_moments_pallas(values, ids, topi, k: int, point_tile: int = 1024,
-                         seg_tile: int = 512):
-    P, CH = values.shape
-    CHp = _round_up(CH, 128)
-    Pp = _round_up(P, point_tile)
-    Sp = _round_up(k, seg_tile)
-
-    vals = jnp.zeros((Pp, CHp), values.dtype).at[:P, :CH].set(values)
-    ids_p = jnp.full((Pp, 1), -1, jnp.int32).at[:P, 0].set(ids.astype(jnp.int32))
-    topi_p = jnp.full((8, Sp), -2, jnp.int32).at[0, :k].set(topi.astype(jnp.int32))
-
-    grid = (Sp // seg_tile, Pp // point_tile)
-    out = pl.pallas_call(
-        _topi_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((point_tile, 1), lambda i, j: (j, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, seg_tile), lambda i, j: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((point_tile, CHp), lambda i, j: (j, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((seg_tile, CHp), lambda i, j: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((Sp, CHp), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * Pp * Sp * CHp, bytes_accessed=Pp * CHp * 4 + Sp * CHp * 4,
-            transcendentals=0,
-        ),
-    )(ids_p, topi_p, vals)
-    return out[:k, :CH]
-
-
-def segment_topk_moments(values, ids, num_segments: int, k: int,
-                         row_size: int | None = None):
-    """Fused segment-sum + top-k compaction: reduce ``values`` into the ``k``
+def segment_topk_moments(values, ids, num_segments: int, k: int):
+    """Segment sum + top-k compaction: reduce ``values`` into the ``k``
     segments with the largest channel-0 sums, returning ``(out (k, CH),
     seg_ids (k,))`` ordered by descending channel-0 sum.
 
     Channel 0 must be the per-point weight (point count): the scan-NDT build
-    keeps only the ``max_scan_cells`` most-populated cells, so the expensive
-    multi-channel reduction only needs to cover those k segments.  On TPU,
-    pass 1 is a factored one-hot histogram on the MXU (``row_size`` = side
-    length of the 2-D grid hash, when ids = iy * row_size + ix) or a scalar
-    scatter-add; pass 2 contracts a one-hot built against the top-k segment
-    list directly — no id remapping, ~7x less matmul work than a
-    num_segments-wide single pass.
+    keeps only the ``max_scan_cells`` most-populated cells.
     """
-    P, CH = values.shape
-    ok = (ids >= 0) & (ids < num_segments)
-    safe = jnp.where(ok, ids, num_segments)
-    on_tpu = jax.default_backend() == "tpu"
-    if on_tpu and row_size is not None and row_size * row_size == num_segments \
-            and P >= 2048:
-        counts = _counts_factored(
-            ok.astype(values.dtype) * values[:, 0],
-            jnp.where(ok, ids, -1), row_size,
-        )
-    else:
-        counts = jax.ops.segment_sum(
-            values[:, 0], safe, num_segments=num_segments + 1
-        )[:num_segments]
-    _, topi = jax.lax.top_k(counts, k)
-
-    if on_tpu and P >= 2048 and k >= 128:
-        out = _topi_moments_pallas(values, jnp.where(ok, ids, -1), topi, k)
-        return out, topi
-    full = jax.ops.segment_sum(values, safe, num_segments=num_segments + 1)[
-        :num_segments
-    ]
+    full = segment_moments(values, ids, num_segments)
+    _, topi = jax.lax.top_k(full[:, 0], k)
     return full[topi], topi

@@ -1,80 +1,15 @@
-"""Per-row contiguous window extraction as a Pallas kernel.
+"""Per-row contiguous window extraction.
 
 The radar intensity filter gathers a fixed window of range bins around each
 azimuth's peak (``RadarPreprocessor::filterScan`` expands runs around the
 per-beam maximum, ``RS/src/radar_preprocessing/radar_preprocessor.cpp:45-125``;
-the TPU build bounds the run to a window).  ``jnp.take_along_axis`` lowers to
-a row-serial gather on TPU (~12% of front-end time); the windows are
-*contiguous* spans though, so each row needs one dynamic slice, which Mosaic
-executes as a pair of aligned vector loads plus a lane shift.
+this build bounds the run to a window).  One ``take_along_axis`` gather.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-def _kernel(starts_ref, img_ref, rng_ref, iw_ref, rw_ref):
-    """Mosaic only allows 128-aligned dynamic lane offsets, so each row loads
-    an aligned 256-lane slab covering the window and rotates it into place
-    with a dynamic lane roll."""
-    rows = img_ref.shape[0]
-
-    def window(ref, row, s):
-        s_al = pl.multiple_of((s // 128) * 128, 128)
-        off = s - s_al
-        slab = ref[pl.ds(row, 1), pl.ds(s_al, 256)]         # (1, 256)
-        rolled = pltpu.roll(slab, -off, 1)                  # dynamic rotate
-        return rolled[:, :128]
-
-    def body(i, _):
-        s = starts_ref[i, 0]
-        iw_ref[pl.ds(i, 1), :] = window(img_ref, i, s)
-        rw_ref[pl.ds(i, 1), :] = window(rng_ref, 0, s)
-        return 0
-
-    jax.lax.fori_loop(0, rows, body, 0)
-
-
-@functools.partial(jax.jit, static_argnames=("win",))
-def _row_windows_pallas(img, rng_row, starts, win: int):
-    A, R = img.shape
-    TA = 128
-    Ap = _round_up(A, TA)
-    Rp = _round_up(R + 256, 128)  # slack so the aligned 256-slab stays in bounds
-    img_p = jnp.zeros((Ap, Rp), img.dtype).at[:A, :R].set(img)
-    rng_p = jnp.full((8, Rp), -1e9, img.dtype).at[0, :R].set(rng_row)
-    starts_p = jnp.zeros((Ap, 1), jnp.int32).at[:A, 0].set(
-        jnp.clip(starts.astype(jnp.int32), 0, R)
-    )
-    grid = (Ap // TA,)
-    iw, rw = pl.pallas_call(
-        _kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((TA, 1), lambda i: (i, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((TA, Rp), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, Rp), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((TA, 128), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((TA, 128), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((Ap, 128), img.dtype),
-            jax.ShapeDtypeStruct((Ap, 128), img.dtype),
-        ),
-    )(starts_p, img_p, rng_p)
-    return iw[:A, :win], rw[:A, :win]
 
 
 def row_windows(img, rng_row, starts, win: int):
@@ -82,14 +17,12 @@ def row_windows(img, rng_row, starts, win: int):
     out_img[a, w] = img[a, starts[a] + w], out_rng[a, w] = rng_row[starts[a]+w].
 
     ``starts`` must satisfy 0 <= start and start + win <= img.shape[1] (the
-    caller pre-pads the image).  Requires ``win <= 128``.  Falls back to
-    ``take_along_axis`` off-TPU.
+    caller pre-pads the image); columns past the edge are clamped.
     """
-    A, R = img.shape
-    if jax.default_backend() == "tpu" and win <= 128 and A >= 8:
-        return _row_windows_pallas(img, rng_row, starts, win)
-    jw = starts[:, None].astype(jnp.int32) + jnp.arange(win)[None, :]
-    jw_c = jnp.clip(jw, 0, R - 1)
-    iw = jnp.take_along_axis(img, jw_c, axis=1)
-    rw = rng_row[jw_c]
+    R = img.shape[1]
+    with jax.named_scope("row_windows"):
+        jw = starts[:, None].astype(jnp.int32) + jnp.arange(win)[None, :]
+        jw_c = jnp.clip(jw, 0, R - 1)
+        iw = jnp.take_along_axis(img, jw_c, axis=1)
+        rw = rng_row[jw_c]
     return iw, rw

@@ -1,7 +1,7 @@
 """Device-mesh helpers for multi-chip scaling.
 
-The reference is a single-process shared-memory system (SURVEY.md §2.2); the
-TPU build scales along these axes instead:
+The reference is a single-process shared-memory system (SURVEY.md §2.2);
+this build scales along these axes instead:
 
   * ``data``  — independent sequences (rosbags) processed in parallel, one
     front-end state per shard (BASELINE configs 4-5),
@@ -14,21 +14,12 @@ from __future__ import annotations
 import jax
 import numpy as np
 
-try:  # jax >= 0.6 exposes shard_map at top level
-    _shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map as _shard_map  # type: ignore
-
-
 def shard_map(f, **kw):
     """``jax.shard_map`` with the varying-manual-axes check disabled: the
     front-end solver's while-loops initialize carries (damping, convergence
     flags) from unvarying constants that become shard-varying after one
     iteration, which the strict checker rejects."""
-    try:
-        return _shard_map(f, check_vma=False, **kw)
-    except TypeError:  # older jax: the kwarg was called check_rep
-        return _shard_map(f, check_rep=False, **kw)
+    return jax.shard_map(f, check_vma=False, **kw)
 
 
 P = jax.sharding.PartitionSpec
@@ -43,8 +34,8 @@ def init_distributed(coordinator_address: str | None = None,
     when arguments are omitted (the standard launcher-env pattern); a no-op
     for single-process runs so all entry points can call it unconditionally.
     After a successful init, ``data_mesh()`` spans every chip of every host
-    and psum/all-gather collectives ride ICI within a slice and DCN across
-    hosts — no further code changes needed in the sharded paths.
+    and the sharded paths' psum/all-gather collectives span them with no
+    further code changes.
     Returns True iff a multi-process runtime was initialized.
     """
     import os

@@ -139,7 +139,7 @@ class FrameOutput(NamedTuple):
     rejected: jax.Array       # () bool pose-jump rejection
     n_residuals: jax.Array    # () int32
     # capacity-saturation telemetry (padded-tensor overflow would otherwise
-    # silently degrade maps — VERDICT.md weak item 7).  Plain Python bools:
+    # silently degrade maps).  Plain Python bools:
     # jnp scalars here would run at class-creation time and initialize the
     # XLA backend on IMPORT, which breaks multi-process entry points that
     # must call jax.distributed.initialize() first (tests/test_distributed).
@@ -148,7 +148,7 @@ class FrameOutput(NamedTuple):
     store_saturated: jax.Array | bool = False   # submap store full
     # ScanContext descriptor of this frame's filtered scan (sensor frame),
     # emitted so the loop pass reuses it instead of re-running the whole
-    # preprocessor per keyframe (VERDICT r3 item 2).  None when the driver
+    # preprocessor per keyframe.  None when the driver
     # does not request it.
     sc_desc: jax.Array | None = None
     # Online-path extras (``with_scan_cells=True``): the scan's derived NDT
@@ -231,7 +231,6 @@ def build_scan_cells(cfg: SlamConfig, frame: Frame, sensor_to_base) -> tuple:
         filt.points, filt.mask, ids, num, cfg.capacity.max_scan_cells,
         polar=filt.polar if cell_cfg.use_pndt else None,
         beam_cov=np.asarray(cell_cfg.beam_cov) if cell_cfg.use_pndt else None,
-        row_size=cfg.preprocessor.cluster_row_size,
     )
     mu, cov = C.mean_cov(
         stats,
@@ -306,8 +305,8 @@ def frontend_step(cfg: SlamConfig, carry: FrontendCarry, frame: Frame,
     # step (one ~213 KB dynamic row write) instead of inside the completion
     # cond below: under vmap (multi-sequence batching) a cond whose branch
     # touches the (NS, KS) store lowers to a both-branches select that
-    # streams the whole ~100 MB store per step per sequence — measured as
-    # the cause of the flat one-chip batch curve (SPEED.md §5).  Rows at or
+    # streams the whole ~100 MB store per step per sequence, which flattened
+    # the one-device batch curve.  Rows at or
     # beyond ``store_count`` are invalid by contract, so the partial copies
     # this writes before completion are never read; the write on the
     # completion step itself stores exactly the final stats

@@ -1,8 +1,9 @@
 """Radar scan preprocessing: azimuth-wise intensity filtering + grid clustering.
 
 Re-architecture of ``RadarPreprocessor::filterScan``
-(``RS/src/radar_preprocessing/radar_preprocessor.cpp:45-125``) for TPU.  The
-reference walks an azimuth-organized point cloud with three sequential loops
+(``RS/src/radar_preprocessing/radar_preprocessor.cpp:45-125``) as batched
+array code.  The reference walks an azimuth-organized point cloud with three
+sequential loops
 (per-beam max, expand closer, expand farther).  Here the scan is a polar
 intensity image ``(A azimuths, R range bins)`` — the native Navtech format —
 and the filter becomes:
@@ -100,8 +101,8 @@ def filter_scan(
     ).astype(dtype)
 
     # ---- fixed window around each peak -------------------------------------
-    # The windows are contiguous spans, so extraction is one dynamic slice
-    # per row (Pallas kernel) over an image pre-padded by the window radius;
+    # The windows are contiguous spans, gathered per row over an image
+    # pre-padded by the window radius;
     # out-of-bounds columns carry sentinel values (intensity 0, range -1e9)
     # and are additionally excluded by the arithmetic ``in_bounds`` mask.
     from .ops.window_slice import row_windows

@@ -1,6 +1,7 @@
 """Sliding-window scan-to-submap registration (the reference ``Matcher``).
 
-Re-architecture of ``RS/src/ndt_registration/ndt_matcher.cpp`` for TPU:
+Re-architecture of ``RS/src/ndt_registration/ndt_matcher.cpp`` as batched
+array code:
 
 * ``predictTransform`` (:22-59)        -> :func:`predict_next_state`
 * ``estimateTransformCeres`` (:322-424)-> :func:`estimate_window`
@@ -262,7 +263,7 @@ def estimate_window(
         )  # (W,F,C,K), (W,F,C,K,3)
         w_ndt = ndt_scale * barron.weight(r_ndt * r_ndt, scale_, alpha_, mu)
         w_ndt = jnp.where(pair_valid, w_ndt, 0.0)
-        # Normal equations need f32 accumulation (not the default bf16 MXU
+        # Normal equations need full float32 (not a reduced-precision matmul
         # pass): conditioning of H decides the step quality.
         hp = jax.lax.Precision.HIGHEST
         Hj = jnp.einsum("wfck,wfcki,wfckj->wij", w_ndt, Jn, Jn, precision=hp)
@@ -282,70 +283,6 @@ def estimate_window(
             g = g.at[o:o + 3].add(gj[j] * af)
         return H, g
 
-    # ---- Pallas-fused path (VERDICT r4 item 4) -----------------------------
-    # One kernel per LM iteration for the NDT linearization (residual +
-    # analytic Jacobian + Barron IRLS + per-slot 3x3 JᵀWJ blocks), one for
-    # the residual-only cost pass, one for the damped 36x36 SPD solve — the
-    # solver loop is launch-latency-bound, not FLOP-bound (SPEED.md §0).
-    # TPU + intensity path only; everything else falls back to jacfwd.
-    on_tpu = jax.default_backend() == "tpu"
-    use_pallas = (
-        use_structured_linearizer
-        and bool(getattr(mcfg, "use_pallas_linearize", True))
-        and use_int
-        and on_tpu
-    )
-    cost_fn = r2max_fn = solve_fn = None
-    if on_tpu and bool(getattr(mcfg, "use_pallas_chol", True)):
-        from ..ops.small_chol import chol_solve
-
-        solve_fn = chol_solve
-    if use_pallas:
-        from ..ops import ndt_linearize as NL
-
-        packed = NL.pack_pairs(m_mean_b, m_cov_b, assoc.mean, assoc.cov,
-                               pair_valid)
-
-        def aux_cost(p_flat):
-            ra = aux_fn(p_flat)
-            return jnp.sum(jnp.where(aux_valid, ra * ra, 0.0))
-
-        def linearize_pallas(p_flat, mu):
-            p = p_flat.reshape(W + 1, 9)
-            Hn, gn, _ = NL.linearize(
-                p[1:, :3], mu, ndt_scale, packed,
-                scale=float(scale_), alpha=float(alpha_))
-            hp = jax.lax.Precision.HIGHEST
-            ra = aux_fn(p_flat)
-            Ja = jax.jacfwd(aux_fn)(p_flat)
-            wa = jnp.where(aux_valid, 1.0, 0.0).astype(dtype)
-            Jm = Ja * active_f[None, :]
-            JW = Jm * wa[:, None]
-            H = jnp.einsum("ni,nj->ij", Jm, JW, precision=hp)
-            g = jnp.einsum("ni,n->i", JW, ra, precision=hp)
-            for j in range(W):
-                o = 9 * (j + 1)
-                af = active_f[o:o + 3]
-                H = H.at[o:o + 3, o:o + 3].add(
-                    Hn[j] * af[:, None] * af[None, :])
-                g = g.at[o:o + 3].add(gn[j] * af)
-            return H, g
-
-        def cost_fn(p_flat, mu):
-            p = p_flat.reshape(W + 1, 9)
-            rho, _ = NL.robust_cost(p[1:, :3], mu, packed,
-                                    scale=float(scale_), alpha=float(alpha_))
-            return 0.5 * (ndt_scale * rho + aux_cost(p_flat))
-
-        def r2max_fn(p_flat):
-            p = p_flat.reshape(W + 1, 9)
-            _, r2max = NL.robust_cost(p[1:, :3], jnp.float32(1.0), packed,
-                                      scale=float(scale_),
-                                      alpha=float(alpha_))
-            return r2max
-
-        linearize_fn = linearize_pallas
-
     res = solver.gnc_solve(
         residual_fn,
         states.reshape(-1),
@@ -362,9 +299,6 @@ def estimate_window(
         mcfg.lm_tolerance,
         linearize_fn=linearize_fn if use_structured_linearizer else None,
         lm_ftol=mcfg.lm_function_tolerance,
-        cost_fn=cost_fn,
-        r2max_fn=r2max_fn,
-        solve_fn=solve_fn,
     )
     new_states = res.params.reshape(W + 1, 9)
 
@@ -410,7 +344,7 @@ def global_grid_search(
     (``Matcher::estimateTransformGlobalBNB``, ``ndt_matcher.cpp:495-608``).
 
     The reference walks a work queue of (pose, level) tuples, pruning by a
-    cost threshold.  The TPU build scores the ENTIRE coarsest grid as one
+    cost threshold.  This build scores the ENTIRE coarsest grid as one
     batch, then runs ``csm_n_iter`` refinement levels keeping the
     ``beam_width`` best candidates and expanding each into its 3x3x3
     half-step neighborhood — a dense beam search covering the same candidate

@@ -2,7 +2,7 @@
 
 Replaces the reference's Ceres solve loop (``Matcher::estimateTransformCeres``,
 ``RS/src/ndt_registration/ndt_matcher.cpp:322-424``): instead of a dynamically
-assembled ceres::Problem re-solved per GNC step with LM trust regions, the TPU
+assembled ceres::Problem re-solved per GNC step with LM trust regions, this
 build evaluates ALL residuals as one fixed-shape batch, takes exact forward-
 mode Jacobians (``jax.jacfwd``), applies the robust loss as IRLS weights
 (rho'(s) — see ``barron.py``), and solves the tiny dense normal equations on
@@ -26,6 +26,7 @@ import jax
 import jax.numpy as jnp
 
 from ..geometry import normalize_angle
+from ..ops.spd_solve import spd_solve
 from . import barron
 
 
@@ -43,6 +44,14 @@ def _robust_cost(r_ndt, r_aux, ndt_valid, aux_valid, ndt_scale, scale, alpha, mu
     return 0.5 * (ndt_scale * c_ndt + c_aux)
 
 
+def solve_damped(A, b):
+    """Solve the damped, Jacobi-scaled SPD normal equations: one Pallas
+    kernel on CUDA devices (``ops/spd_solve.py``), XLA's LU elsewhere.  The
+    choice is made per device when the computation is lowered."""
+    return jax.lax.platform_dependent(A, b, cuda=spd_solve,
+                                      default=jnp.linalg.solve)
+
+
 def lm_solve(
     residual_fn: Callable,
     params0,
@@ -58,8 +67,6 @@ def lm_solve(
     tol: float,
     linearize_fn: Callable | None = None,
     ftol: float = 1e-6,
-    cost_fn: Callable | None = None,
-    solve_fn: Callable | None = None,
 ):
     """Damped Gauss-Newton (LM) at a fixed GNC mu.
 
@@ -71,11 +78,6 @@ def lm_solve(
     one window slot, so its Jacobian needs 3 forward tangents (not all P=36)
     and Hᵀ assembly is a per-slot 3x3 block scatter — ~12x less jvp work than
     the dense ``jacfwd`` default.
-
-    ``cost_fn(params, mu) -> robust cost`` optionally replaces the
-    residual_fn-based cost evaluation (Pallas-fused path).
-    ``solve_fn(A, b) -> x`` optionally replaces ``jnp.linalg.solve`` for the
-    damped SPD normal equations (``ops/small_chol.chol_solve``).
     """
     P = params0.shape[0]
     active_f = active_mask.astype(params0.dtype)
@@ -87,8 +89,6 @@ def lm_solve(
     n_ndt = ndt_valid.shape[0]
 
     def cost_at(p):
-        if cost_fn is not None:
-            return cost_fn(p, mu)
         rn, ra = residual_fn(p)
         return _robust_cost(rn, ra, ndt_valid, aux_valid, ndt_scale, scale, alpha, mu)
 
@@ -109,6 +109,7 @@ def lm_solve(
 
     lin = linearize_fn if linearize_fn is not None else _dense_linearize
 
+    @jax.named_scope("lm_iter")
     def body(carry):
         p, lam, c_old, it, done = carry
         H, g = lin(p, mu)
@@ -125,8 +126,8 @@ def lm_solve(
         damp = lam * active_f + (1.0 - active_f)
         A = Hs + jnp.diag(damp)
         rhs = g * dscale
-        delta_s = -(jnp.linalg.solve(A, rhs) if solve_fn is None
-                    else solve_fn(A, rhs))
+        with jax.named_scope("lm_solve"):
+            delta_s = -solve_damped(A, rhs)
         delta = delta_s * dscale
 
         trial = p + delta
@@ -140,7 +141,7 @@ def lm_solve(
         )
         # Ceres parameter_tolerance semantics: ||dx|| <= ptol * (||x|| + ptol)
         # — a RELATIVE step test.  The absolute form ``||dx|| < tol`` with
-        # tol=1e-7 essentially never fires in float32 (VERDICT r4 weak-6),
+        # tol=1e-7 essentially never fires in float32,
         # leaving convergence one-legged on the ftol path.  ``delta`` is zero
         # on inactive params (dscale carries active_f), so the norms only see
         # the active block.
@@ -184,21 +185,11 @@ def gnc_solve(
     lm_tol: float,
     linearize_fn: Callable | None = None,
     lm_ftol: float = 1e-6,
-    cost_fn: Callable | None = None,
-    r2max_fn: Callable | None = None,
-    solve_fn: Callable | None = None,
 ) -> SolveResult:
     """Graduated non-convexity: LM solves over the decreasing-mu schedule
-    (do-while, ``ndt_matcher.cpp:390-397``).
-
-    ``cost_fn(p, mu)`` / ``r2max_fn(p)`` / ``solve_fn(A, b)`` optionally
-    replace the residual-stack cost, the mu-init max squared residual, and
-    the damped linear solve with fused kernels (see ``lm_solve``)."""
-    if r2max_fn is not None:
-        s0_max = r2max_fn(params0)
-    else:
-        rn0, _ = residual_fn(params0)
-        s0_max = jnp.max(jnp.where(ndt_valid, rn0 * rn0, 0.0))
+    (do-while, ``ndt_matcher.cpp:390-397``)."""
+    rn0, _ = residual_fn(params0)
+    s0_max = jnp.max(jnp.where(ndt_valid, rn0 * rn0, 0.0))
     mu0 = barron.gnc_mu_init(s0_max, scale, gnc_steps, divisor)
 
     def cond(carry):
@@ -206,14 +197,14 @@ def gnc_solve(
         first = rounds == 0
         return first | barron.gnc_continue(mu, divisor)
 
+    @jax.named_scope("gnc_solve")
     def body(carry):
         p, mu, rounds = carry
         mu_eff = jnp.maximum(mu, 1.0)
         p_new, _ = lm_solve(
             residual_fn, p, active_mask, angle_mask, ndt_valid, aux_valid,
             ndt_scale, scale, alpha, mu_eff, lm_max_iters, lm_tol,
-            linearize_fn=linearize_fn, ftol=lm_ftol, cost_fn=cost_fn,
-            solve_fn=solve_fn,
+            linearize_fn=linearize_fn, ftol=lm_ftol,
         )
         return p_new, mu / divisor, rounds + 1
 
@@ -221,13 +212,10 @@ def gnc_solve(
         cond, body, (params0, mu0, jnp.int32(0))
     )
     mu_fin = jnp.maximum(mu, 1.0)
-    if cost_fn is not None:
-        final_cost = cost_fn(p, mu_fin)
-    else:
-        rn, ra = residual_fn(p)
-        final_cost = _robust_cost(
-            rn, ra, ndt_valid, aux_valid, ndt_scale, scale, alpha, mu_fin
-        )
+    rn, ra = residual_fn(p)
+    final_cost = _robust_cost(
+        rn, ra, ndt_valid, aux_valid, ndt_scale, scale, alpha, mu_fin
+    )
     return SolveResult(
         params=p,
         cost=final_cost,

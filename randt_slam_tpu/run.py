@@ -104,7 +104,7 @@ def export_live_view(output: str, cfg, engine, with_ogm: bool = False):
     ``live/{map.png, ndt_submap.npz, trajectory.json[, ogm.pgm]}`` with the
     CURRENT engine state, so an external viewer polling the directory watches
     the run evolve mid-flight instead of only seeing end-of-run artifacts
-    (VERDICT r4 missing-6)."""
+."""
     import jax.numpy as jnp
     import numpy as np
 
@@ -151,7 +151,7 @@ def main(argv=None):
 
     # Multi-host entry (BASELINE config 5): a no-op unless the launcher set
     # RANDT_COORDINATOR/RANDT_NUM_PROCESSES/RANDT_PROCESS_ID — after which
-    # jax.devices() spans every host and the sharded paths ride ICI/DCN.
+    # jax.devices() spans every host and the sharded paths span them too.
     # MUST run before any backend-touching import (jax.distributed rule).
     from .parallel.mesh import init_distributed
 
@@ -294,7 +294,13 @@ def main(argv=None):
     viz.export_trajectory_json(
         os.path.join(args.output, "trajectory.json"), node_stamp, node_pose)
 
+    import jax
+
+    dev = jax.devices()[0]
     metrics = {
+        # the device the run used, so a CPU run is visible as one
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
         "frames": T,
         "wall_s": round(wall, 3),
         "frames_per_second": round(T / wall, 2),
@@ -304,6 +310,8 @@ def main(argv=None):
     if not args.online:
         odo_res = res if args.odometry_only else res.odometry
         metrics["saturation"] = odo_res.saturation
+        if not args.odometry_only and "loop_prewarm_error" in res.timings:
+            metrics["loop_prewarm_error"] = res.timings["loop_prewarm_error"]
     if gt_poses is not None:
         metrics.update({
             "odom_ate_m": round(formats.ate(odom, gt_poses[:T]), 4),
@@ -323,6 +331,7 @@ def main(argv=None):
     with open(os.path.join(args.output, "metrics.json"), "w") as f:
         json.dump(metrics, f, indent=2)
     print(json.dumps(metrics, indent=2))
+    return metrics
 
 
 if __name__ == "__main__":

@@ -37,7 +37,7 @@ def save_carry(path: str, carry, extra: dict | None = None):
 # Fields added AFTER checkpoints already existed in the wild: only these may
 # fall back to the template value when missing from a snapshot.  Anything else
 # missing means a truncated/mismatched file and must raise, not silently
-# resume from partly-default state (ADVICE r4).  The derived-field caches are
+# resume from partly-default state.  The derived-field caches are
 # safe to default because they are rebuilt at the next keyframe exit.
 MIGRATED_FIELDS = frozenset({
     "submap_fmean", "submap_fcov", "submap_fvalid",

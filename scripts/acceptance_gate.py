@@ -1,9 +1,8 @@
-"""Accuracy regression gate (VERDICT r2 weak-7/item-8): re-runs a short
+"""Accuracy regression gate: re-runs a short
 oxford_sim window that CONTAINS the 10-12-32 revisit (GT frames 1200..2800
 bracket the ~1423 -> ~2691 revisit pair) and fails loudly if drift, ATE, or
-loop-closure behavior leaves the accepted band.  The checked-in
-OXFORD_SIM_metrics therefore can't silently age: run this on the real chip
-after any change to the registration / loop / PGO path.
+loop-closure behavior leaves the accepted band.  Run this on the GPU after
+any change to the registration / loop / PGO path.
 
     python scripts/acceptance_gate.py            # gate (exit 1 on regression)
     python scripts/acceptance_gate.py --selftest # prove the gate turns red
@@ -26,7 +25,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # (2026-08-20: odom 0.124 %, SLAM ATE 0.165 m, 31 loops, median loop error
 # 0.033 m, 0 rejected frames) — loose enough for seed/compiler drift, tight
 # enough that halved loop recall or +30% odometry drift trips them
-# (VERDICT r3 item 6 tightened these from the round-2 placeholders).
+#.
 BANDS = {
     "odom_trans_err_pct_max": 0.4,
     "slam_ate_m_max": 1.0,

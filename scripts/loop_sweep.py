@@ -1,4 +1,4 @@
-"""Loop-recall sensitivity sweep (VERDICT r3 item 7).
+"""Loop-recall sensitivity sweep.
 
 Runs odometry ONCE on the 10-12-32 revisit window, then re-runs ONLY the
 loop pass (ScanContext retrieval + refinement + gates — cheap now that the

@@ -43,7 +43,7 @@ MAX_RANGE = 100.0               # parameters_oxford.yaml radar_preprocessor
 DT = 0.25                       # 4 Hz Navtech frame rate
 
 
-# Sensor-fidelity ablation presets (VERDICT r2 item 9): each maps to
+# Sensor-fidelity ablation presets: each maps to
 # render_scan_fast kwargs.  "saturation" caps at ~the strongest facade power
 # (Navtech uint8 clipping), "multipath" spawns double-bounce ghosts on 15% of
 # returns, "jitter" adds 0.3 deg azimuth encoder noise (>1/3 of the 0.9 deg
@@ -52,7 +52,7 @@ ABLATIONS = {
     "saturation": {"saturate_at": 140.0},
     "multipath": {"multipath_ghost_prob": 0.15},
     "jitter": {"azimuth_jitter_deg": 0.3},
-    # Combined REALISTIC sensor profile (VERDICT r4 item 5): what a real
+    # Combined REALISTIC sensor profile: what a real
     # Navtech plausibly does all at once, milder than the single-axis STRESS
     # ablations above — uint8 quantization (always on in this driver),
     # calibrated saturation, 0.1 deg encoder jitter (vs 0.3 stress), 5%
@@ -65,7 +65,7 @@ ABLATIONS = {
 
 def shipped_config(no_dcs_defense: bool = False):
     """The SHIPPED acceptance configuration: the reference's own Oxford YAML
-    plus the calibrated TPU-native operating point (num_exclude_recent=50
+    plus the calibrated operating point (num_exclude_recent=50
     from the round-4 recall sweep; the DCS two-stage loop defense is the
     config default).  Factored out so run_acceptance's config fingerprint
     hashes exactly what this driver runs."""
@@ -134,7 +134,7 @@ def build_world_and_scans(gt_poses, seed=0, n_walls_per_km=300,
 
 
 def recall_diagnostics(cfg, gt, odo, loops, opp_radius=7.5):
-    """Loop RECALL vs ground truth (VERDICT r2 weak-5): a query keyframe has
+    """Loop RECALL vs ground truth: a query keyframe has
     a genuine revisit opportunity if some earlier foreign-submap keyframe's
     GT position lies within ``opp_radius`` and at least
     ``num_exclude_recent`` keyframes back.  Break every opportunity down by
@@ -194,7 +194,7 @@ def main(argv=None):
                     help="cadence-faithful replay through OnlineSlam: loop "
                          "search + PGO + submap re-anchoring DURING the run "
                          "(the reference's online timers), one final PGO at "
-                         "the end (VERDICT r3 item 3).  The reference's own "
+                         "the end.  The reference's own "
                          "offline mode (ndt_slam.cpp:124,176) searches loops "
                          "per frame but optimizes once at bag end — the "
                          "default batch path here matches that; --online "
@@ -303,7 +303,7 @@ def main(argv=None):
         node_frame = np.asarray(eng.node_frame)
         n_loops = eng.n_loop_edges
         # steady per-frame stats exclude the first 200 frames (compile
-        # window); the 4 Hz sensor budget is 0.25 s/frame (VERDICT r4 item 3)
+        # window); the 4 Hz sensor budget is 0.25 s/frame
         fw = np.asarray(frame_walls[200:] if T > 400 else frame_walls)
         timings = {"mode": "online", "first_frame_s": round(t_first, 1),
                    "loop_every": args.loop_every,

@@ -1,4 +1,4 @@
-"""Time the front-end stages in isolation on the real chip.
+"""Time the front-end stages in isolation on the GPU.
 
 Stages: preprocess+scan-NDT, derive_grid_fields (per-frame fixed-map field
 derivation), association, and the GNC/LM solve — to target Pallas work.

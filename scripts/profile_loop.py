@@ -1,4 +1,4 @@
-"""Loop-phase micro-profile at Oxford shapes (VERDICT r4 item 1).
+"""Loop-phase micro-profile at Oxford shapes.
 
 Times the pieces of one refine+gate chunk (loops/detector.py step 3-4) in
 isolation on the live backend: association, GNC refinement, scan self-term,

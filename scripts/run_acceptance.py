@@ -1,5 +1,5 @@
 """Full-length acceptance sweep: all 8 Oxford sequences at full GT length
-(VERDICT r2 item 1).  Runs ``oxford_sim`` per sequence (simulated returns
+.  Runs ``oxford_sim`` per sequence (simulated returns
 along the REAL GT route — raw radar is unfetchable here, OXFORD_RESULTS.md
 §1), scores with the validated kitti_eval protocol, and writes one summary
 JSON + per-sequence metrics under ``acceptance/``.
@@ -103,8 +103,7 @@ def main():
         with open(dst, "w") as f:
             json.dump(m, f, indent=2)
         ok = m["slam"]["ate_m"] <= REF_SLAM_ATE[seq]
-        # steady wall (VERDICT r4 weak-8): the raw wall folds in compile
-        # stalls of the flaky remote compile service; the steady composite
+        # steady wall: the raw wall folds in compile time; the steady composite
         # (median odometry chunk x chunks + steady loop stages + pgo) is the
         # pipeline's own cost and is reported alongside, never instead.
         wall_steady = None

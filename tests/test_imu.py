@@ -1,4 +1,4 @@
-"""End-to-end IMU path (VERDICT.md missing item 2).
+"""End-to-end IMU path.
 
 The reference feeds relative yaw from consecutive IMU quaternions into a
 rotation + bias-walk residual (``ndt_matcher.cpp:146-181``,

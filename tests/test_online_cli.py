@@ -78,7 +78,7 @@ def _tiny_frames(cfg, n):
 
 def test_online_checkpoint_resume_reproduces(tmp_path, tiny_seq):
     """Resume mid-sequence must reproduce the uninterrupted trajectory
-    (VERDICT.md item 9): device carry + host graph/SC/queue state round-trip."""
+: device carry + host graph/SC/queue state round-trip."""
     from randt_slam_tpu.pipeline.online import OnlineSlam
 
     cfg, seq, frames = tiny_seq
@@ -132,7 +132,7 @@ def test_online_ogm_cadence(tiny_seq):
 def test_online_live_viz_export(tmp_path, monkeypatch):
     """--online --viz-every overwrites live/ with the current map view each
     cadence (the RViz NDT-marker + OGM stream equivalent,
-    ``rviz_visualization.cpp:13-18``; VERDICT r4 missing-6)."""
+    ``rviz_visualization.cpp:13-18``)."""
     import dataclasses
 
     from randt_slam_tpu import run as cli
@@ -157,7 +157,7 @@ def test_online_live_viz_export(tmp_path, monkeypatch):
 
 
 def test_saturation_counters_surface(tiny_seq):
-    """Capacity saturation is reported, not silent (VERDICT.md weak item 7)."""
+    """Capacity saturation is reported, not silent."""
     import dataclasses
 
     from randt_slam_tpu.config import CapacityConfig
@@ -177,7 +177,7 @@ def test_saturation_counters_surface(tiny_seq):
 def test_online_pgo_routes_schur_beyond_dense_limit(tiny_seq, monkeypatch):
     """Online PGO must survive graphs beyond the dense solver's node limit
     (full-sequence Oxford reaches ~4k nodes): ``optimize_pose_graph`` routes
-    through ``schur.optimize_auto`` (VERDICT r2 weak-4).  Graph state is
+    through ``schur.optimize_auto``.  Graph state is
     injected directly — driving 2k+ keyframes through the front end would
     take minutes without testing anything extra."""
     from randt_slam_tpu.graph import schur

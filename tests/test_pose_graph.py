@@ -157,7 +157,7 @@ def _outlier_loop_graph(rng, n=400, drift=0.01):
 
 
 def test_dcs_two_stage_suppresses_outlier_loop():
-    """TPU-native robust-PGO extension: DCS on loop edges only, two-stage.
+    """Robust-PGO extension: DCS on loop edges only, two-stage.
     The quadratic solve is visibly corrupted by the outlier; the robust solve
     must land near ground truth (reference has only all-edge Huber,
     ``global_fuser.cpp:17-23``, and runs Oxford with it off).

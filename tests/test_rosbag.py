@@ -112,7 +112,7 @@ def test_convert_bag_to_npz_with_imu(tmp_path):
 def test_bag_pipeline_e2e_with_ingested_imu(tmp_path):
     """Full chain: synthetic world -> point clouds -> BAG -> npz -> odometry
     with ``use_imu: true`` consuming the INGESTED (not synthetic-array) yaw
-    (VERDICT r2 missing-5)."""
+."""
     import dataclasses
 
     import jax
